@@ -1,10 +1,10 @@
-"""longcallR-TPU: TPU-native long-read RNA-seq SNP calling and phasing.
+"""longcallR-TPU: accelerated long-read RNA-seq SNP calling and phasing.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 huangnengCSU/longcallR (Rust, CPU). Host side handles BAM/FASTA I/O and
 ragged-to-dense tiling; all per-site/per-read/per-iteration math runs as
-batched JAX ops and kernels on TPU; regions are the unit of data parallelism
-across a device mesh.
+batched JAX programs on the accelerator (an NVIDIA GPU); regions are the
+unit of data parallelism across a device mesh.
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ log = logging.getLogger(__name__)
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="longcallr-tpu",
-        description="TPU-native SNP calling and phasing from long-read RNA-seq")
+        description="SNP calling and phasing from long-read RNA-seq")
     # clap derives -V/--version from #[command(version)] (main.rs:40)
     from . import __version__
     p.add_argument("-V", "--version", action="version",
@@ -66,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batched", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="Bucketed multi-region device pipeline (batched "
-                        "candidate kernel + bucketed phasing; the TPU "
+                        "candidate kernel + bucketed phasing; the device "
                         "scaling path). Default: on for multi-region runs. "
                         "--no-batched forces the per-region loop")
     p.add_argument("--stream", dest="stream", action="store_true",
@@ -84,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Tumor purity channel weight for --somatic (default 0.3)")
     p.add_argument("--profile-dir", default=None,
                    help="Write a jax.profiler trace of the run to this dir")
-    # pod-slice launch (parallel/multihost.py): mirrors how the reference
+    # multi-process (pod) launch (parallel/multihost.py): mirrors how the reference
     # exposes every mode through one binary (main.rs:228-491). All three
     # flags go together; each pod process runs this same command with its
     # own --process-id. See docs/usage.md for a 2-process localhost recipe.
@@ -96,7 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process-id", type=int, default=None,
                    help="This process's index in [0, num-processes)")
     p.add_argument("--platform", default=None,
-                   help="Force the JAX platform (e.g. cpu, tpu) before any "
+                   help="Force the JAX platform (cpu, cuda) before any "
                         "backend/distributed init — overrides environment "
                         "presets that env vars cannot")
     p.add_argument("--log-level", default="INFO")

@@ -1,6 +1,6 @@
 """Caller configuration and platform presets.
 
-TPU-native re-design of the reference CLI/preset layer
+Re-design of the reference CLI/preset layer
 (``longcallR/src/main.rs:39-185`` args, ``main.rs:272-396`` preset tables).
 Instead of threading ~33 positional parameters through the pipeline, every knob
 lives in one frozen dataclass that is hashable (usable as a static jit arg) and

@@ -1,6 +1,6 @@
 """Candidate SNP selection: fused per-column JAX kernel + host dense filter.
 
-TPU-first redesign of ``longcallR/src/candidate.rs:54-528``
+Redesign of ``longcallR/src/candidate.rs:54-528``
 (SNPFrag::get_candidate_snps). The reference walks columns in a scalar loop
 with ragged per-column qual vectors; here every column of a (padded) region
 is evaluated simultaneously: major-allele selection, the filter chain, the
@@ -11,8 +11,7 @@ HBM. The two dense-window passes operate on the tiny sorted candidate list
 and stay on host (candidate.rs:471-523).
 
 Decision-relevant dtypes mirror the reference: allele frequencies and SOR in
-f32, likelihood math in f64 (the TPU backend emulates f64; the per-column
-cost is a handful of flops).
+f32, likelihood math in f64 (the per-column cost is a handful of flops).
 """
 
 from __future__ import annotations
@@ -69,6 +68,17 @@ def _binom_two_tailed_table() -> np.ndarray:
 _BINOM_TWO_TAILED = _binom_two_tailed_table()
 
 
+def _div32(a, b):
+    """IEEE (correctly rounded) f32 quotient of f32 operands on every
+    placement: a GPU's f32 division may be off by an ulp, which moves a
+    printed AF across a rounding edge. The f64 quotient rounded to f32 is
+    the correctly rounded f32 quotient (53 >= 2·24 + 2 bits, so the double
+    rounding is innocuous), i.e. bit-identical to the CPU's f32 division."""
+    f32 = jnp.float32
+    a, b = a.astype(f32), b.astype(f32)
+    return (a.astype(jnp.float64) / b.astype(jnp.float64)).astype(f32)
+
+
 def _sor_f32(ref_fw, ref_rv, alt_fw, alt_rv):
     """GATK-style strand odds ratio with +1 pseudocounts, computed in f32
     exactly like candidate.rs:24-35."""
@@ -77,9 +87,9 @@ def _sor_f32(ref_fw, ref_rv, alt_fw, alt_rv):
     x01 = (ref_rv + 1).astype(f32)
     x10 = (alt_fw + 1).astype(f32)
     x11 = (alt_rv + 1).astype(f32)
-    sym = (x00 * x11) / (x01 * x10) + (x01 * x10) / (x00 * x11)
-    ref_ratio = jnp.minimum(x00, x01) / jnp.maximum(x00, x01)
-    alt_ratio = jnp.minimum(x10, x11) / jnp.maximum(x10, x11)
+    sym = _div32(x00 * x11, x01 * x10) + _div32(x01 * x10, x00 * x11)
+    ref_ratio = _div32(jnp.minimum(x00, x01), jnp.maximum(x00, x01))
+    alt_ratio = _div32(jnp.minimum(x10, x11), jnp.maximum(x10, x11))
     return jnp.log(sym) + jnp.log(ref_ratio) - jnp.log(alt_ratio)
 
 
@@ -122,9 +132,8 @@ def candidate_kernel(cols: dict, cfg: CallerConfig) -> dict:
     n1 = c0
     a2 = jnp.where(promo2, x2, jnp.where(promo3, x3, x1))
     n2 = jnp.where(promo2, c2_, jnp.where(promo3, c3_, c1_))
-    covf = cov.astype(f32)
-    f1 = n1.astype(f32) / covf
-    f2 = n2.astype(f32) / covf
+    f1 = _div32(n1, cov)
+    f2 = _div32(n2, cov)
 
     # --- ref / alt roles (candidate.rs:100-130) ---
     a1_is_ref = a1 == ref_idx
@@ -147,7 +156,7 @@ def candidate_kernel(cols: dict, cfg: CallerConfig) -> dict:
     keep &= ~(low1 | low2)
     keep &= cols["n_del"].astype(jnp.int64) < alt0_cnt          # candidate.rs:165-168
     depth_ii = (cov + cols["n_del"] + cols["n_intron"]).astype(f32)
-    keep &= ((n1 + n2).astype(f32) / depth_ii) >= f32(cfg.min_allele_freq_include_intron)
+    keep &= _div32(n1 + n2, depth_ii) >= f32(cfg.min_allele_freq_include_intron)
 
     # baseq pass: first non-ref major allele needs >=2 high-qual bases
     bqp = cols["bq_pass"]
@@ -195,8 +204,8 @@ def candidate_kernel(cols: dict, cfg: CallerConfig) -> dict:
     lls = jnp.stack([ll0, ll1, ll2], axis=1)            # [P,3]
     # All normalisations below run in log domain: numerically identical to
     # the reference's 10**x/Σ form in f64 (entries >17 decades below the max
-    # are invisible to the f64 sum either way), but safe on TPU where f64
-    # pow emulation underflows early — exponents are clamped to [-20, 0].
+    # are invisible to the f64 sum either way) — exponents are clamped to
+    # [-20, 0].
     def _log10_norm(lx):
         m = lx.max(axis=1, keepdims=True)
         s = jnp.sum(10.0 ** jnp.maximum(lx - m, -20.0), axis=1, keepdims=True)

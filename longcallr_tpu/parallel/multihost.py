@@ -2,7 +2,7 @@
 
 The reference's "distributed backend" is a rayon thread pool in one address
 space (thread.rs:52-77). Here a pod-slice run is N JAX processes
-(``jax.distributed.initialize`` over DCN): every host discovers the same
+(``jax.distributed.initialize`` over the network): every host discovers the same
 region list deterministically, takes its shard (size-balanced LPT), runs the
 region pipeline against its local BAM copy, and the per-region results —
 tiny relative to compute — are gathered to every process with
@@ -21,6 +21,7 @@ single-process tests by faking the shard split.
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import _jaxcfg  # noqa: F401  (x64 before any trace)
@@ -31,15 +32,48 @@ from ..config import CallerConfig
 from ..tiles.regions import Region
 
 
+def host_gpu_count() -> int:
+    """NVIDIA cards visible on this host, as ``nvidia-smi -L`` lists them
+    (no JAX backend is initialised, so a pod process can pick its card
+    first; /dev/nvidiaN nodes need not match the visible cards). 0 where
+    nvidia-smi is absent."""
+    import subprocess
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return 0
+    return sum(1 for line in out.splitlines() if line.startswith("GPU "))
+
+
+def pod_local_device_ids(process_id: int, n_host_gpus: int,
+                         environ=os.environ) -> Optional[List[int]]:
+    """The card a pod process opens: one per process, so processes that
+    share a host never open each other's cards (a JAX process reserves most
+    of a card's memory, and a second one on it runs out). Process p takes
+    card p mod (cards per host), which assumes the launcher places the same
+    number of consecutive process ids on every host. A launcher that sets
+    CUDA_VISIBLE_DEVICES or JAX_LOCAL_DEVICE_IDS has already chosen: None.
+    None also on hosts without cards."""
+    if "CUDA_VISIBLE_DEVICES" in environ or "JAX_LOCAL_DEVICE_IDS" in environ:
+        return None
+    if n_host_gpus <= 0:
+        return None
+    return [process_id % n_host_gpus]
+
+
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize wrapper (no-op when unconfigured)."""
+    """jax.distributed.initialize wrapper (no-op when unconfigured); each
+    process opens only its own card (pod_local_device_ids)."""
     if coordinator_address is None and num_processes is None:
         return
-    jax.distributed.initialize(coordinator_address=coordinator_address,
-                               num_processes=num_processes,
-                               process_id=process_id)
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes, process_id=process_id,
+        local_device_ids=pod_local_device_ids(process_id or 0,
+                                              host_gpu_count()))
 
 
 def shard_regions(regions: Sequence[Region], num_processes: int,
@@ -114,7 +148,6 @@ def gather_results(local: Dict[int, dict],
             "gather_results: a previous gather timed out, leaving a thread "
             "blocked inside process_allgather; collectives in this process "
             "are unusable (restart the process to rejoin the pod)")
-    import os
     import threading
 
     if timeout_s is None:

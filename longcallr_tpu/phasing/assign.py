@@ -15,7 +15,7 @@ Vectorised redesign of ``longcallR/src/snpfrags.rs``:
     whose order is unspecified — see SURVEY.md §4).
 
 State lives in the CandidateSet / FragmentMatrix numpy arrays; the masked
-sums reuse the phasing kernels (CPU or TPU backend).
+sums reuse the phasing kernels.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Fragment extraction: reads × candidate-SNPs allele matrices.
 
-TPU-first redesign of ``longcallR/src/fragment.rs:10-309``
+Redesign of ``longcallR/src/fragment.rs:10-309``
 (SNPFrag::get_fragments). The reference builds per-read Vec<FragElem> lists
 plus HashMap LD-pair counts; here each region produces a dense
 ``[K reads × I candidates]`` cell matrix (int8 p-allele, uint8 capped baseq)

@@ -1,4 +1,4 @@
-"""Matvec-form phasing half-steps (the MXU/HBM-bandwidth path).
+"""Matvec-form phasing half-steps (the memory-bandwidth-bound path).
 
 The masked log-emission sums of the coordinate ascent decompose exactly over
 three fixed matrices (per region, per ascent call):
@@ -110,18 +110,20 @@ def fast_overall_probability(ft: FastTables, sigma, delta, eta) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# hi/lo f32-split mode: the Dp matvecs on the MXU
+# hi/lo f32-split mode: the Dp matvecs as f32 contractions
 # ---------------------------------------------------------------------------
 #
-# The TPU MXU has no f64 datapath — XLA *emulates* every f64 op in software
-# (double-float arithmetic), so the f64 matvecs above never touch the
-# systolic array. In split mode Dp is stored as an exact two-term f32 sum
-# (dp = hi + lo with hi = f32(dp), lo = f32(dp − hi); |lo| ≤ ulp(hi), so the
-# representation is f64-exact to ~2⁻⁴⁸ relative) and each matvec runs as two
-# f32 contractions — native MXU work — whose partials are combined in f64.
-# The contraction axis is chunked (F32_CHUNK) so f32 accumulation error stays
-# bounded by ~chunk·2⁻²⁴ per partial before the exact f64 chunk-sum; the
-# sigma/delta/eta operands are in {−1, 0, +1} and therefore f32-exact.
+# For devices without a fast f64 datapath. In split mode Dp is stored as an
+# exact two-term f32 sum (dp = hi + lo with hi = f32(dp), lo = f32(dp − hi);
+# |lo| ≤ ulp(hi), so the representation is f64-exact to ~2⁻⁴⁸ relative) and
+# each matvec runs as two f32 contractions whose partials are combined in
+# f64. The contraction axis is chunked (F32_CHUNK) so f32 accumulation error
+# stays bounded by ~chunk·2⁻²⁴ per partial before the exact f64 chunk-sum;
+# the sigma/delta/eta operands are in {−1, 0, +1} and therefore f32-exact.
+# That bound holds only if every f32 product is exact, so every contraction
+# here states precision=HIGHEST: at default precision a GPU may run f32
+# matmuls in TF32 (~10 mantissa bits), which breaks the bound by orders of
+# magnitude.
 #
 # Accuracy: sums agree with the f64 kernels to ~1e-4 absolute (vs magnitudes
 # of 1–10³), which can flip near-tie ascent decisions; the optimizer's
@@ -131,6 +133,7 @@ def fast_overall_probability(ft: FastTables, sigma, delta, eta) -> jnp.ndarray:
 
 F32_CHUNK = 512
 f32 = jnp.float32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class FastTables32(NamedTuple):
@@ -180,10 +183,9 @@ with _np.errstate(invalid="ignore"):
 
 
 def _tiny_table_lookup(q8, table_np):
-    """Gather-free lookup from a ≤31-entry f32 table: a TPU gather over
-    [B,K,I] indices lowers to a ~66 ms fusion at deep-bucket scale (measured
-    — gathers are effectively scalar on the VPU), while a compare+select
-    chain over the table entries is ordinary vector work inside one fusion.
+    """Gather-free lookup from a ≤31-entry f32 table: a compare+select
+    chain over the table entries is elementwise work that fuses with its
+    consumers, where a gather over [B,K,I] indices is a separate pass.
     q8 values above the table range resolve to the LAST entry (same clamp
     semantics as expand_cells' jnp.minimum + clipped gather)."""
     out = jnp.full(q8.shape, jnp.float32(table_np[len(table_np) - 1]), f32)
@@ -193,13 +195,14 @@ def _tiny_table_lookup(q8, table_np):
 
 
 def _ones_sum_rows(a32):
-    """Σ over the minor axis of [K,I] f32 via a ones-contraction on the MXU,
+    """Σ over the minor axis of [K,I] f32 via a ones-contraction,
     F32_CHUNK-chunked f32 partials combined in f64 (same accumulation
     contract as the split matvecs)."""
     K, I = a32.shape
     c = _chunks(I)
     parts = jnp.einsum("kjc,c->kj", a32.reshape(K, I // c, c),
-                       jnp.ones(c, f32), preferred_element_type=f32)
+                       jnp.ones(c, f32), preferred_element_type=f32,
+                       precision=_HIGHEST)
     return parts.astype(f64).sum(axis=1)
 
 
@@ -208,16 +211,16 @@ def _ones_sum_cols(a32):
     K, I = a32.shape
     c = _chunks(K)
     parts = jnp.einsum("jci,c->ji", a32.reshape(K // c, c, I),
-                       jnp.ones(c, f32), preferred_element_type=f32)
+                       jnp.ones(c, f32), preferred_element_type=f32,
+                       precision=_HIGHEST)
     return parts.astype(f64).sum(axis=0)
 
 
 def fast_tables32_from_compact(cc, read_mask, site_mask) -> FastTables32:
-    """FastTables32 built DIRECTLY from CompactCells: f32 table gathers and
-    MXU ones-contractions, no [K,I] f64 intermediate anywhere. f64
-    elementwise is software-emulated on the TPU — the expand-then-split
-    build (expand_cells + make_fast_tables32) measured 278 ms of a 314 ms
-    deep-bucket program; this form is ~an order of magnitude cheaper.
+    """FastTables32 built DIRECTLY from CompactCells: f32 table lookups and
+    ones-contractions, no [K,I] f64 intermediate anywhere (the
+    expand-then-split build, expand_cells + make_fast_tables32, makes
+    several f64 passes over [K,I]).
 
     Exactness vs the expand-then-split build:
       * dp2 is BIT-IDENTICAL: f32(diff·p) == f32(diff)·p for p ∈ {±1}.
@@ -270,47 +273,22 @@ def _chunks(n: int) -> int:
     return c
 
 
-def _use_pallas(K: int, I: int, operand=None) -> bool:
-    from . import pallas_kernels as PK
-    if not PK._HAVE_PALLAS or not PK.eligible(K, I):
-        return False
-    if operand is not None:
-        # under vmap (the bucketed multi-region programs) keep the einsum
-        # form — batching a pallas_call adds a grid dimension the kernels
-        # are not written for. Private-module sniff: if the import breaks
-        # on a jax upgrade, disable pallas rather than the whole path.
-        try:
-            from jax._src.interpreters import batching as _batching
-            if isinstance(operand, _batching.BatchTracer):
-                return False
-        except Exception:
-            return False
-    if PK.USE_PALLAS is not None:
-        return PK.USE_PALLAS
-    return PK._pallas_available()
-
-
 def _matvec_rows(dp2, x) -> jnp.ndarray:
     """dp @ x with I-axis-chunked f32 contractions, f64 chunk accumulation.
     ``dp2`` is the stacked [2,K,I] hi/lo split; both halves contract in ONE
     einsum (the split axis rides along as a batch dim — identical partials
     to two separate kernels, one launch). ``x`` may be [I] or [I,X]
-    (stacked operands — one pass over dp). Large aligned shapes route to
-    the Pallas kernel (pallas_kernels.py): one VMEM-resident pass over both
-    split halves with in-kernel double-f32 accumulation."""
+    (stacked operands — one pass over dp)."""
     _, K, I = dp2.shape
     vec = x.ndim == 1
     if vec:
         x = x[:, None]
     X = x.shape[1]
-    if X == 2 and _use_pallas(K, I, dp2):
-        from . import pallas_kernels as PK
-        return PK.dual_matvec_rows(dp2[0], dp2[1], x,
-                                   interpret=PK.INTERPRET)
     c = _chunks(I)
     x32 = x.astype(f32).reshape(I // c, c, X)
     d = dp2.reshape(2, K, I // c, c)
-    parts = jnp.einsum("skjc,jcx->skjx", d, x32, preferred_element_type=f32)
+    parts = jnp.einsum("skjc,jcx->skjx", d, x32, preferred_element_type=f32,
+                       precision=_HIGHEST)
     out = (parts[0].astype(f64) + parts[1].astype(f64)).sum(axis=1)
     return out[:, 0] if vec else out
 
@@ -319,13 +297,11 @@ def _matvec_cols(dp2, s) -> jnp.ndarray:
     """dp.T @ s with K-axis-chunked f32 contractions, f64 accumulation;
     both split halves in one einsum (see _matvec_rows)."""
     _, K, I = dp2.shape
-    if _use_pallas(K, I, dp2):
-        from . import pallas_kernels as PK
-        return PK.matvec_cols(dp2[0], dp2[1], s, interpret=PK.INTERPRET)
     c = _chunks(K)
     s32 = s.astype(f32).reshape(K // c, c)
     d = dp2.reshape(2, K // c, c, I)
-    parts = jnp.einsum("sjci,jc->sji", d, s32, preferred_element_type=f32)
+    parts = jnp.einsum("sjci,jc->sji", d, s32, preferred_element_type=f32,
+                       precision=_HIGHEST)
     return (parts[0].astype(f64) + parts[1].astype(f64)).sum(axis=0)
 
 
@@ -419,7 +395,7 @@ def fast_block_flip32(ft: FastTables32, p8, sigma, delta, eta, site_mask,
           * F.astype(f32))
     d = ft.dp2.reshape(2, K // c, c, I)
     parts = jnp.einsum("sjci,jci->sji", d, sf.reshape(K // c, c, I),
-                       preferred_element_type=f32)
+                       preferred_element_type=f32, precision=_HIGHEST)
     H = (parts[0].astype(f64) + parts[1].astype(f64)).sum(axis=0)
 
     s_match_new = s_flip + delta * H

@@ -2,7 +2,7 @@
 
 The run orchestration of ``longcallR/src/thread.rs:17-362``, with the rayon
 thread pool replaced by a thread pool over regions (host I/O + kernel
-dispatch; the TPU executes the batched math) and the nondeterministic
+dispatch; the accelerator executes the batched math) and the nondeterministic
 Mutex-queue merges replaced by deterministic (contig, start)-ordered merges.
 """
 

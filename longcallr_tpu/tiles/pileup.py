@@ -1,6 +1,6 @@
 """Pileup tensorization: BAM reads → dense per-region column tensors.
 
-TPU-first redesign of the reference pileup engine
+Redesign of the reference pileup engine
 (``longcallR/src/util.rs:614-950`` Profile::fill_data_into_freq_vec). Instead
 of a ``Vec<BaseFreq>`` of per-column Vec-of-quals, each region produces fixed
 layout numpy tensors; per-base quality log-terms are folded at scatter time

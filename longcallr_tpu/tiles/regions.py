@@ -4,7 +4,7 @@ Faithful re-implementation of the reference depth scanner
 (``longcallR/src/util.rs:236-332`` find_isolated_regions_with_depth and
 ``util.rs:558-602`` extract_isolated_regions_parallel) with vectorised numpy
 depth accumulation instead of a per-base Rust loop. Regions are the unit of
-data parallelism in the TPU pipeline — each becomes an independent work item
+data parallelism in the pipeline — each becomes an independent work item
 sharded across hosts/chips.
 
 Exact semantics replicated (needed for output parity):

@@ -4,7 +4,7 @@ The demo locus (1 region, K=1697 reads, I=19 candidates) never exercises
 the device path: phase work scales as cells × rounds (rounds = I//4+1,
 ``longcallR/src/phase.rs:1198-1233``), and at I=19 the whole schedule is
 milliseconds of host work. This generator synthesizes the workload class
-the TPU path exists for — several deep, SNP-dense diploid loci:
+the device path exists for — several deep, SNP-dense diploid loci:
 
   * per region ~``region_len/snp_spacing`` het SNPs (I ≈ 500 → 126
     perturbation rounds) at ~50/50 allele balance,
@@ -13,8 +13,7 @@ the TPU path exists for — several deep, SNP-dense diploid loci:
     haplotypes, base errors at ``err_rate``.
 
 The resulting per-region ascent problem (K≈4096 × I≈512 padded, ~126
-rounds) is ~15 s of host-CPU work but ~0.2 s on one TPU chip (measured;
-see bench.py's deep section). Regions are separated by coverage gaps so
+rounds) is seconds of host-CPU work; chip_smoke.py runs it on the card. Regions are separated by coverage gaps so
 region discovery (tiles/regions.py) finds them independently.
 
 A→G and T→C substitutions are avoided so no planted SNP trips the

@@ -1,10 +1,10 @@
 """glibc malloc tuning for this deployment environment.
 
-The VM pays ~0.5 ms per first-touch page fault (nested virtualisation), so
-any fresh large mapping streams at only a few MB/s while warm memory runs at
-GB/s. By default glibc serves big allocations via mmap and returns them on
-free, so every large numpy temporary re-faults its pages. Raising
-M_MMAP_THRESHOLD and disabling trim keeps those blocks on the (warm) heap.
+A first-touch page fault is expensive on virtualised hosts, so a fresh
+large mapping streams far slower than warm memory. By default glibc serves
+big allocations via mmap and returns them on free, so every large numpy
+temporary re-faults its pages. Raising M_MMAP_THRESHOLD and disabling trim
+keeps those blocks on the (warm) heap.
 
 Call ``tune()`` once at process start; it is idempotent and silently a
 no-op where glibc/mallopt is unavailable.
@@ -25,7 +25,6 @@ def tune(mmap_threshold: int = 1 << 30, trim_threshold: int = 1 << 30) -> bool:
     global _done
     if _done:
         return True
-    limit_blas_threads()
     try:
         libc = ctypes.CDLL(ctypes.util.find_library("c") or "libc.so.6",
                            use_errno=True)
@@ -42,29 +41,11 @@ def trim() -> bool:
 
     tune() disables automatic trimming so freed blocks stay warm; an
     explicit trim is still honored by glibc and is the honest way to reset
-    the RSS floor before a memory measurement (re-faulting a trimmed
-    working set runs at ~2 GB/s on this host — measured, not the ~3 MB/s
-    never-touched-page pathology). Returns True if memory was released."""
+    the RSS floor before a memory measurement. Returns True if memory was
+    released."""
     try:
         libc = ctypes.CDLL(ctypes.util.find_library("c") or "libc.so.6",
                            use_errno=True)
         return bool(libc.malloc_trim(0))
     except Exception:
         return False
-
-
-def limit_blas_threads(n: int = 1) -> None:
-    """Pin BLAS pools to one thread: the pipeline's GEMMs are small
-    ([reads, 4·snps] and alike) and already run under a region thread pool,
-    so OpenBLAS's own pthreads only add sync overhead and oversubscription."""
-    global _blas_limiter
-    try:
-        import threadpoolctl
-        # keep a reference: the limiter object restores original limits when
-        # used as a context manager, never let it participate in one
-        _blas_limiter = threadpoolctl.threadpool_limits(n, user_api="blas")
-    except Exception:
-        pass
-
-
-_blas_limiter = None

@@ -138,7 +138,7 @@ def _synth_large(rng, K=400, I=10000):
 
 
 def test_assignment_layer_scales_to_10k_candidates():
-    """VERDICT round-1 #4: the per-SNP flag loop and the rescue loop must
+    """The per-SNP flag loop and the rescue loop must
     stay vectorised — 10k candidates in well under the interpreter-bound
     regime, outputs equal to the scalar oracle."""
     import time

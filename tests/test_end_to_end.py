@@ -481,8 +481,7 @@ def test_batched_resume_wave_granularity(tmp_path, rng, monkeypatch):
 def test_demo_golden_records(demo_bam_path, tmp_path):
     """Golden regression gate on the REAL demo reads: the full pipeline's
     records must be byte-identical to tests/golden/demo_chr20_records.vcf
-    (frozen from a verified run; identical across the CPU and TPU
-    placements — checked every bench). Any silent drift in any stage's
+    (frozen from a verified run). Any silent drift in any stage's
     numerics, wiring or seeding trips this."""
     import os
 
@@ -564,9 +563,8 @@ def test_wave_split_and_overlap_byte_identical(tmp_path, monkeypatch):
 
 
 def test_vmem_bucket_split_byte_identical(tmp_path, monkeypatch):
-    """The VMEM-aware bucket split (LONGCALLR_VMEM_TABLE_MB, measured in
-    experiments/arith_intensity.py: split tables past ~128 MB fall off VMEM
-    and cost 2.4x per region-iteration) must not change a byte — bucket
+    """Splitting a bucket into smaller dispatches (here the batch-axis cap,
+    forced to one region per dispatch) must not change a byte — bucket
     composition only regroups regions (per-region seed streams)."""
     from longcallr_tpu.phasing import batch_driver as bd
     from longcallr_tpu.utils.bench_workload import make_deep_workload
@@ -595,13 +593,12 @@ def test_vmem_bucket_split_byte_identical(tmp_path, monkeypatch):
         tags = sorted((r.qname, r.get_tag("HP"), r.get_tag("PS")) for r in pb)
         return recs, tags
 
-    base = _run("whole")                # CPU placement → no split
+    base = _run("whole")                # under the cap → no split
     assert sizes and max(sizes) == 3
     sizes.clear()
-    monkeypatch.setenv("LONGCALLR_VMEM_SPLIT_FORCE", "1")
-    monkeypatch.setattr(bd, "VMEM_TABLE_MB", 1e-6)   # force max split
+    monkeypatch.setattr(bd, "CPU_BUCKET_B_CAP", 1)   # force max split
     split = _run("split")               # one region per bucket dispatch
-    # sizes = [3 (outer guard call), 1, 1, 1 (recursive dispatches)]
+    # sizes = [3 (outer cap call), 1, 1, 1 (recursive dispatches)]
     assert sizes.count(1) >= 3
     assert split == base
 

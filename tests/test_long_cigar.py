@@ -1,4 +1,4 @@
-"""CG-tag long-CIGAR support (VERDICT r4 item 4).
+"""CG-tag long-CIGAR support.
 
 BAM stores CIGARs with more than 65,535 ops as a two-op ``kSmN``
 placeholder (k = l_seq, m = reference span) plus the real cigar in a

@@ -1,4 +1,4 @@
-"""Overlapped resident-path phased-BAM write (VERDICT r4 item 2).
+"""Overlapped resident-path phased-BAM write.
 
 The batched ``run()`` path deflates each wave's phased records on an ordered
 background writer while later waves compute (pipeline/caller.py::
